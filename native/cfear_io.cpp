@@ -1,7 +1,7 @@
 // cfear_io: native radar data plane.
 //
 // The reference ingests radar sweeps from rosbags on the main thread
-// (offline_odometry.cpp:64-126, radar_driver.cpp:74-111). For TPU feeding,
+// (offline_odometry.cpp:64-126, radar_driver.cpp:74-111). For accelerator feeding,
 // decode/IO must never stall the device, so this library provides:
 //
 //  - a packed binary sweep format ("radar pack"): one mmap-able file holding
@@ -10,7 +10,7 @@
 //  - a zero-copy mmap reader;
 //  - a multi-threaded prefetch loader that assembles fixed-size frame
 //    batches in pinned host buffers ahead of the consumer (double-buffered
-//    ring), so the host->TPU transfer pipeline stays full.
+//    ring), so the host->device transfer pipeline stays full.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 dependency).
 

@@ -3,7 +3,7 @@
 Independent, loop-level Python re-statements of the algorithms described in
 SURVEY.md (k-strongest filtering `radar_filters.cpp:209-337`, weighted cell
 statistics `pointnormal.cpp:7-63`), used only to validate the fixed-shape
-TPU implementations against the reference behavior.
+JAX implementations against the reference behavior.
 """
 
 from __future__ import annotations

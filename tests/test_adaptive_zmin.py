@@ -20,12 +20,12 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.models import odometry
-from cfear_radarodometry_code_public_tpu.ops import filtering
-from cfear_radarodometry_code_public_tpu.utils import native_io
-from cfear_radarodometry_code_public_tpu.eval.kitti import kitti_drift
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.models import odometry
+from cfear_jax.ops import filtering
+from cfear_jax.utils import native_io
+from cfear_jax.eval.kitti import kitti_drift
 
 Q = 0.98
 

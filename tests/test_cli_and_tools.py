@@ -2,8 +2,8 @@ import os
 
 import numpy as np
 
-from cfear_radarodometry_code_public_tpu import offline_odometry
-from cfear_radarodometry_code_public_tpu.parallel import sweep
+from cfear_jax import offline_odometry
+from cfear_jax.parallel import sweep
 
 
 BASE = ["--dataset", "synthetic", "--n-frames", "8", "--cpu",
@@ -48,9 +48,9 @@ def test_sweep_and_merge(tmp_path):
 def test_checkpoint_resume(tmp_path):
     import dataclasses
     import jax.numpy as jnp
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu.models import odometry
+    from cfear_jax.config import preset
+    from cfear_jax.datasets import synthetic
+    from cfear_jax.models import odometry
 
     cfg = preset("CFEAR-3", dataset="synthetic")
     cfg = cfg.replace(feature=dataclasses.replace(cfg.feature, max_cells=256),
@@ -93,7 +93,7 @@ def test_scaling_efficiency_tool():
 
 def test_config_file_roundtrip(tmp_path):
     """YAML/JSON config round-trip + --config-file as the CLI base."""
-    from cfear_radarodometry_code_public_tpu.config import CFEARConfig, preset
+    from cfear_jax.config import CFEARConfig, preset
 
     cfg = preset("CFEAR-2", dataset="mulran")
     for ext in ("yaml", "json"):

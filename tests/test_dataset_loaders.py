@@ -5,7 +5,7 @@ import os
 import numpy as np
 from PIL import Image
 
-from cfear_radarodometry_code_public_tpu.datasets import oxford
+from cfear_jax.datasets import oxford
 
 
 def _write_png(path, arr):
@@ -99,10 +99,10 @@ def test_kvarntorp_volvo_geometry_pipelines_track():
     drive the full pipeline through each at sensor scale on the
     simulator and require ground-truth tracking."""
     import dataclasses
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu.models import odometry
-    from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse
+    from cfear_jax.config import preset
+    from cfear_jax.datasets import synthetic
+    from cfear_jax.models import odometry
+    from cfear_jax.eval.trajectory import ate_rmse
 
     for name in ("kvarntorp", "volvo"):
         cfg = preset("CFEAR-3", dataset=name)

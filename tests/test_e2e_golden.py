@@ -21,10 +21,10 @@ import os
 import numpy as np
 import pytest
 
-from cfear_radarodometry_code_public_tpu import offline_odometry
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.utils import se2
+from cfear_jax import offline_odometry
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.utils import se2
 
 N_FRAMES = 12
 T0_US = 1_547_120_000_000_000          # arbitrary Oxford-era epoch stamp

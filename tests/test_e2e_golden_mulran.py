@@ -28,9 +28,9 @@ import os
 import numpy as np
 import pytest
 
-from cfear_radarodometry_code_public_tpu import offline_odometry
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import oxford, synthetic
+from cfear_jax import offline_odometry
+from cfear_jax.config import preset
+from cfear_jax.datasets import oxford, synthetic
 
 N_FRAMES = 12
 T0_NS = 1_561_000_000_000_000_000       # MulRan-era epoch stamp (ns)
@@ -107,7 +107,7 @@ def test_mulran_loader_to_result_txt_golden(tmp_path):
 
     # end pose must track GT end-to-end (<2% of path length)
     import jax.numpy as jnp
-    from cfear_radarodometry_code_public_tpu.utils import se2
+    from cfear_jax.utils import se2
     path_len = np.sum(np.linalg.norm(np.diff(gt[:, :2], axis=0), axis=1))
     est_end = rows[-1, [3, 7]]
     end_rel = np.asarray(se2.relative(jnp.asarray(gt[0]),

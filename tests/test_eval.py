@@ -2,7 +2,7 @@ import os
 
 import numpy as np
 
-from cfear_radarodometry_code_public_tpu.eval import kitti, trajectory
+from cfear_jax.eval import kitti, trajectory
 
 
 def _circle_traj(n=400, radius=100.0):

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.ops import filtering
+from cfear_jax.config import preset
+from cfear_jax.ops import filtering
 
 from oracles import kstrongest_oracle, nms_peaks_oracle, points_oracle
 
@@ -140,7 +140,7 @@ def test_cacfar_exclusive_matches_reference_oracle():
 def test_cacfar_host_ingest_matches_device():
     """Native/NumPy host CFAR filter == device cfar_select, bit-exactly,
     and points_from_candidates == filter_polar_image on the CFAR path."""
-    from cfear_radarodometry_code_public_tpu.utils import native_io
+    from cfear_jax.utils import native_io
     rng = np.random.default_rng(4)
     cfg = _cfar_cfg()
     imgs = np.stack([rand_image(rng, 64, 256) for _ in range(3)])

@@ -2,9 +2,9 @@ import dataclasses
 
 import numpy as np
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.models import (loopclosure,
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.models import (loopclosure,
                                                         odometry, posegraph)
 
 
@@ -46,7 +46,7 @@ def test_loop_closure_on_circular_trajectory():
     # (The former `opt_err <= raw_err + 1e-6` demanded an end-node
     # improvement that the edge set cannot observe; it passed only under
     # the pre-r5 DCS rho whose w*s 'cost' DECREASED for outliers.)
-    from cfear_radarodometry_code_public_tpu.utils import se2 as _se2
+    from cfear_jax.utils import se2 as _se2
     import jax.numpy as _jnp
     kf_frames = np.where(np.asarray(out.fused))[0]
     gt_end = gt[kf_frames[-1], :2]
@@ -55,7 +55,7 @@ def test_loop_closure_on_circular_trajectory():
     assert opt_err <= raw_err + 0.05, (opt_err, raw_err)
 
     def _loop_res(poses_arr):
-        import cfear_radarodometry_code_public_tpu.models.posegraph as pg
+        import cfear_jax.models.posegraph as pg
         r = []
         for (i, j, tij, info, kind) in gb.edges:
             if kind == pg.LOOP_APPEARANCE:
@@ -80,7 +80,7 @@ def test_aliased_loop_rejected_at_defaults():
     (implied correction ~= the full 50+ m separation >> 15% of the
     odometric distance) and stage it as a CANDIDATE constraint instead.
     """
-    from cfear_radarodometry_code_public_tpu.models import posegraph
+    from cfear_jax.models import posegraph
 
     cfg = _cfg()
     n = 40
@@ -126,10 +126,10 @@ def test_aliased_loop_rejected_at_defaults():
 def test_descriptors_rotation_invariant_ring_key():
     import jax
     import jax.numpy as jnp
-    from cfear_radarodometry_code_public_tpu.models.loopclosure import (
+    from cfear_jax.models.loopclosure import (
         LoopCloserConfig, _descriptors)
-    from cfear_radarodometry_code_public_tpu.ops import features, filtering
-    from cfear_radarodometry_code_public_tpu.utils import se2
+    from cfear_jax.ops import features, filtering
+    from cfear_jax.utils import se2
 
     cfg = _cfg()
     rng = np.random.default_rng(0)
@@ -154,7 +154,7 @@ def test_loop_closure_from_loaded_graph_500_frames(tmp_path):
     pose-graph optimization must improve the loop-end ATE."""
     import time
 
-    from cfear_radarodometry_code_public_tpu.models import posegraph
+    from cfear_jax.models import posegraph
 
     cfg = _cfg()
     cfg = cfg.replace(radar=dataclasses.replace(
@@ -203,7 +203,7 @@ def test_loop_closure_from_loaded_graph_500_frames(tmp_path):
 def test_mini_loop_constraints():
     """MINI_LOOP densification (`types.h:150-190`): short-range keyframe
     registrations become extra constraints; optimization still improves."""
-    from cfear_radarodometry_code_public_tpu.models import posegraph
+    from cfear_jax.models import posegraph
 
     cfg = _cfg()
     images, gt = synthetic.make_sequence(seed=51, n_frames=40, cfg=cfg,

@@ -7,11 +7,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.models import odometry
-from cfear_radarodometry_code_public_tpu.ops import features, filtering, registration
-from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.models import odometry
+from cfear_jax.ops import features, filtering, registration
+from cfear_jax.eval.trajectory import ate_rmse
 
 
 def _cfg(**feat_kw):

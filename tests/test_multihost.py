@@ -14,7 +14,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from cfear_radarodometry_code_public_tpu.parallel import distributed
+from cfear_jax.parallel import distributed
 
 pid = int(sys.argv[1])
 port = sys.argv[2]
@@ -42,9 +42,9 @@ assert out == 28.0, out
 
 # distributed pose-graph GN across both processes
 import numpy as onp
-from cfear_radarodometry_code_public_tpu.models import posegraph
-from cfear_radarodometry_code_public_tpu.parallel import pgo
-from cfear_radarodometry_code_public_tpu.utils import se2
+from cfear_jax.models import posegraph
+from cfear_jax.parallel import pgo
+from cfear_jax.utils import se2
 
 gb = posegraph.GraphBuilder()
 n = 16

@@ -14,9 +14,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.models import (multisession,
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.models import (multisession,
                                                         odometry, posegraph)
 
 N_A, B_LO, B_HI = 48, 16, 44
@@ -213,7 +213,7 @@ def test_merge_many_refuses_disjoint_third(sessions):
 
 def test_merge_many_cli_three_graphs(sessions, session_c, tmp_path):
     """The merge CLI accepts N graphs and reports per-session merges."""
-    from cfear_radarodometry_code_public_tpu import merge_sessions as cli
+    from cfear_jax import merge_sessions as cli
     paths = []
     for name, gb in (("a", sessions["gb_a"]), ("b", sessions["gb_b"]),
                      ("c", session_c["gb_c"])):
@@ -235,7 +235,7 @@ def test_merge_sessions_cli(sessions, tmp_path):
     """The merge CLI consumes two saved simple_graph.npz artifacts (the
     reference's .sgh hand-off form) and writes a merged, optimized graph
     + TUM trajectory."""
-    from cfear_radarodometry_code_public_tpu import merge_sessions as cli
+    from cfear_jax import merge_sessions as cli
     pa = str(tmp_path / "a.npz")
     pb = str(tmp_path / "b.npz")
     sessions["gb_a"].save(pa)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from cfear_radarodometry_code_public_tpu.utils import native_io
+from cfear_jax.utils import native_io
 
 
 def _frames(n, a=64, r=128, seed=0):
@@ -66,8 +66,8 @@ def test_host_filter_matches_device_filter():
     """Native k-strongest+NMS must be bit-identical to ops/filtering.py."""
     import jax.numpy as jnp
 
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.ops import filtering
+    from cfear_jax.config import preset
+    from cfear_jax.ops import filtering
 
     cfg = preset("CFEAR-1", dataset="synthetic")
     rng = np.random.default_rng(7)
@@ -175,11 +175,11 @@ def test_compact_pipeline_matches_image_pipeline():
 
     import jax.numpy as jnp
 
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu.models.odometry import (
+    from cfear_jax.config import preset
+    from cfear_jax.datasets import synthetic
+    from cfear_jax.models.odometry import (
         OdometryRunner)
-    from cfear_radarodometry_code_public_tpu.ops import features, filtering
+    from cfear_jax.ops import features, filtering
 
     cfg = preset("CFEAR-3", dataset="synthetic")
     cfg = cfg.replace(feature=dataclasses.replace(cfg.feature,
@@ -223,9 +223,9 @@ def test_compact_pipeline_matches_image_pipeline():
 
 def test_candidates_pipeline_matches_image_pipeline():
     """Host-filter ingest must produce identical odometry to image ingest."""
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu.models.odometry import (
+    from cfear_jax.config import preset
+    from cfear_jax.datasets import synthetic
+    from cfear_jax.models.odometry import (
         OdometryRunner)
 
     cfg = preset("CFEAR-3", dataset="synthetic")

@@ -3,11 +3,11 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.eval.kitti import kitti_drift
-from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse
-from cfear_radarodometry_code_public_tpu.models import odometry
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.eval.kitti import kitti_drift
+from cfear_jax.eval.trajectory import ate_rmse
+from cfear_jax.models import odometry
 
 
 def _cfg(**kw):

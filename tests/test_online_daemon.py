@@ -7,12 +7,12 @@ import time
 
 import numpy as np
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.models import odometry
-from cfear_radarodometry_code_public_tpu.online_odometry import (
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.models import odometry
+from cfear_jax.online_odometry import (
     OnlineOdometry, PackFollower)
-from cfear_radarodometry_code_public_tpu.utils import native_io
+from cfear_jax.utils import native_io
 
 
 def _cfg():
@@ -115,7 +115,7 @@ def test_live_viz_follows_daemon_output(tmp_path):
     viewer (`eval/live_viz.py`, the RViz-follower equivalent) picks the
     poses up incrementally and renders snapshots — the full reference
     online topology (radar topic -> odometry node -> RViz) as files."""
-    from cfear_radarodometry_code_public_tpu.eval import live_viz
+    from cfear_jax.eval import live_viz
 
     cfg = _cfg()
     images, _ = synthetic.make_sequence(seed=13, n_frames=14, cfg=cfg,

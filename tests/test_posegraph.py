@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cfear_radarodometry_code_public_tpu.models import posegraph
-from cfear_radarodometry_code_public_tpu.utils import se2
+from cfear_jax.models import posegraph
+from cfear_jax.utils import se2
 
 
 def _noisy_ring_graph(rng, n=40, loop=True, noise=0.05):
@@ -91,8 +91,8 @@ def test_save_load_roundtrip(tmp_path):
 
 def test_distributed_matches_single_device():
     import jax
-    from cfear_radarodometry_code_public_tpu.parallel import pgo
-    from cfear_radarodometry_code_public_tpu.parallel.mesh import make_mesh
+    from cfear_jax.parallel import pgo
+    from cfear_jax.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(5)
     gb, _ = _noisy_ring_graph(rng)
@@ -173,7 +173,7 @@ def test_to_arrays_handles_indefinite_information():
     (f32 Censi-scaled inverse Hessian near a saddle); to_arrays must
     eigenvalue-clip it instead of crashing in cholesky, and the resulting
     sqrt-information must reproduce the clipped (PSD) matrix."""
-    from cfear_radarodometry_code_public_tpu.models import posegraph
+    from cfear_jax.models import posegraph
 
     gb = posegraph.GraphBuilder()
     a = gb.add_node(np.zeros(3), 0.0)
@@ -204,9 +204,9 @@ def test_distributed_pgo_at_slam_scale():
     import jax
     from jax.sharding import Mesh
 
-    from cfear_radarodometry_code_public_tpu.models import posegraph
-    from cfear_radarodometry_code_public_tpu.parallel import pgo
-    from cfear_radarodometry_code_public_tpu.utils import se2
+    from cfear_jax.models import posegraph
+    from cfear_jax.parallel import pgo
+    from cfear_jax.utils import se2
     import jax.numpy as jnp
 
     devs = jax.devices()

@@ -1,13 +1,15 @@
 import dataclasses
+import functools
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.ops import features, losses, registration
-from cfear_radarodometry_code_public_tpu.ops.filtering import PointCloud
-from cfear_radarodometry_code_public_tpu.utils import se2
+from cfear_jax.config import preset
+from cfear_jax.ops import features, losses, registration
+from cfear_jax.ops.filtering import PointCloud
+from cfear_jax.utils import se2
 
 
 def _cfg(cost="P2L", loss="Huber", weight_opt="Combined", soft=False,
@@ -378,14 +380,24 @@ def test_consistency_gate_and_service():
         jnp.asarray([5.0, 0.0, 0.0]), jnp.asarray([0.0, 0.0, 0.0])))
 
 
-def test_pallas_assoc_backend_matches_dense():
-    """The fused Pallas association kernel (interpreter mode on CPU) must
-    produce identical registrations to the dense XLA backend."""
+@pytest.fixture
+def interpret_kernel(monkeypatch):
+    """Run the association kernel in interpret mode inside register(): the
+    CPU has no Triton compiler, and the kernel never falls back by itself."""
+    from cfear_jax.ops import pallas_assoc
+    monkeypatch.setattr(pallas_assoc, "nn_min", functools.partial(
+        pallas_assoc.nn_min, interpret=True))
+
+
+def test_pallas_assoc_backend_matches_dense(interpret_kernel):
+    """register() through the association kernel (interpret mode, no
+    spatial sort, so every tile runs) must reproduce the dense XLA
+    backend's pose and association count."""
     rng = np.random.default_rng(7)
     true = np.array([2.5, 0.8, 0.06])
     xy, intens = _world_cloud(rng)
     results = {}
-    for method in ("dense", "pallas"):
+    for method in ("dense", "sparse"):
         cfg = _cfg("P2L", "Huber", "Combined")
         cfg = cfg.replace(registration=dataclasses.replace(
             cfg.registration, assoc_method=method))
@@ -398,91 +410,119 @@ def test_pallas_assoc_backend_matches_dense():
         guess = jnp.asarray(true + np.array([0.3, -0.2, 0.02]), jnp.float32)
         results[method] = registration.register(
             kf_cells, kf_poses, kf_valid, src, guess, cfg=cfg)
-    assert bool(results["pallas"].success)
+    assert bool(results["sparse"].success)
     np.testing.assert_allclose(np.asarray(results["dense"].pose),
-                               np.asarray(results["pallas"].pose), atol=1e-5)
+                               np.asarray(results["sparse"].pose), atol=1e-5)
     np.testing.assert_array_equal(np.asarray(results["dense"].num_assoc),
-                                  np.asarray(results["pallas"].num_assoc))
+                                  np.asarray(results["sparse"].num_assoc))
 
 
-def test_nn_kernel_variants_match():
-    """All Pallas 1-NN kernel variants (256-tile, fat 512-tile, in-kernel
-    keyframe loop) return identical (nn, d2) to a numpy argmin reference,
-    including the lowest-index tie-break and all-invalid keyframes."""
-    from cfear_radarodometry_code_public_tpu.ops import pallas_assoc
+def _nn_problem(seed, s, m_tar, m_src, sort=True):
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(m_src, 2)).astype(np.float32) * 40
+    tar = rng.normal(size=(s, m_tar, 2)).astype(np.float32) * 40
+    if sort:                                  # spatially coherent tiles
+        src = src[np.argsort(src[:, 0], kind="stable")]
+        for k in range(s):
+            tar[k] = tar[k][np.argsort(tar[k][:, 0], kind="stable")]
+    tv = rng.random((s, m_tar)) < 0.8
+    sv = np.ones(m_src, bool)
+    return src, sv, tar, tv
 
-    rng = np.random.default_rng(3)
-    s, m = 3, 512
-    src = rng.normal(size=(m, 2)).astype(np.float32) * 40
-    tar = rng.normal(size=(s, m, 2)).astype(np.float32) * 40
-    tar[1, 10] = tar[1, 20]                    # exact duplicate -> tie
-    src[5] = tar[1, 10]
-    valid = rng.random((s, m)) < 0.8
-    valid[2] = False                           # keyframe with no targets
-    d2 = np.sum((src[None, :, None, :] - tar[:, None, :, :]) ** 2, -1)
-    d2 = np.where(valid[:, None, :], d2, np.inf)
-    ref_nn = np.argmin(d2, axis=2)
-    ref_d2 = np.min(d2, axis=2)
-    for name, fn in [
-        ("ts256", lambda: pallas_assoc.nn_min(
-            jnp.asarray(src), jnp.asarray(tar), jnp.asarray(valid),
-            interpret=True, ts=256)),
-        ("ts512", lambda: pallas_assoc.nn_min(
-            jnp.asarray(src), jnp.asarray(tar), jnp.asarray(valid),
-            interpret=True, ts=512)),
-        ("multi", lambda: pallas_assoc.nn_min_multi(
-            jnp.asarray(src), jnp.asarray(tar), jnp.asarray(valid),
-            interpret=True)),
-        ("unrolled", lambda: pallas_assoc.nn_min_multi_unrolled(
-            jnp.asarray(src), jnp.asarray(tar), jnp.asarray(valid),
-            interpret=True)),
-    ]:
-        nn, dd = fn()
-        np.testing.assert_array_equal(np.asarray(nn), ref_nn, err_msg=name)
-        # d2 agrees to f32 ulp (numpy's summation order differs)
-        np.testing.assert_allclose(np.asarray(dd), ref_d2, rtol=1e-5,
-                                   err_msg=name)
+
+def _nn_numpy(src, tar, tv):
+    d = src[None, :, None, :] - tar[:, None, :, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+    d2 = np.where(tv[:, None, :], d2, np.inf)
+    return np.argmin(d2, axis=2), np.min(d2, axis=2)
+
+
+@pytest.mark.parametrize("case", ["dense", "radius5", "ties",
+                                  "empty_keyframe", "padding"])
+def test_nn_kernel_variants_match(case):
+    """The association kernel (interpret mode) returns the numpy argmin
+    reference's (nn, d2) on every row within the radius — lowest-index
+    tie-break, all-invalid keyframes and cell counts that are not whole
+    tiles included — and d2 >= radius^2 on the other rows."""
+    from cfear_jax.ops import pallas_assoc
+
+    s, m_tar, m_src, radius = 3, 256, 192, np.inf
+    if case == "padding":
+        m_tar, m_src, radius = 200, 70, 5.0
+    src, sv, tar, tv = _nn_problem(3, s, m_tar, m_src)
+    if case == "radius5":
+        radius = 5.0
+    if case == "ties":
+        tar[1, [10, 200]] = [10.0, 20.0]     # duplicates in two tiles
+        tar[1, 11] = [11.0, 20.0]
+        tv[1, [10, 11, 200]] = True
+        src[5] = [10.0, 20.0]                # exact tie 10 / 200
+        src[6] = [10.5, 20.0]                # equidistant from 10 and 11
+    if case == "empty_keyframe":
+        tv[2] = False
+        radius = 5.0
+    ref_nn, ref_d2 = _nn_numpy(src, tar, tv)
+    nn, d2 = pallas_assoc.nn_min(jnp.asarray(src), jnp.asarray(sv),
+                                 jnp.asarray(tar), jnp.asarray(tv), radius,
+                                 interpret=True)
+    nn, d2 = np.asarray(nn), np.asarray(d2)
+    assert nn.shape == d2.shape == (s, m_src)
+    within = ref_d2 <= radius * radius
+    np.testing.assert_array_equal(nn[within], ref_nn[within])
+    # d2 agrees to f32 ulp (summation order may differ)
+    np.testing.assert_allclose(d2[within], ref_d2[within], rtol=1e-6)
+    assert (d2[~within] >= radius * radius).all()
+    if case == "ties":
+        assert nn[1, 5] == 10 and nn[1, 6] == 10
+    if case == "empty_keyframe":
+        assert np.isinf(d2[2]).all() and (nn[2] == 0).all()
 
 
 def test_sparse_assoc_kernel_matches_dense():
-    """The block-sparse 1-NN kernel (bounding-box tile skipping) must agree
-    with the dense kernel on every row whose true 1-NN lies within the
-    association radius, and report d2 >= radius^2 elsewhere."""
-    from cfear_radarodometry_code_public_tpu.ops import pallas_assoc as pa
+    """Tile skipping is exact for the association gate: with a radius the
+    kernel agrees with its own radius-free (dense) run on every row whose
+    1-NN lies within the radius, reports d2 >= radius^2 elsewhere, and
+    skips real work (some rows end beyond the radius untouched)."""
+    from cfear_jax.ops import pallas_assoc as pa
 
-    rng = np.random.default_rng(1)
-    s, m, msrc, ts, radius = 4, 1024, 512, 256, 5.0
-    src = rng.normal(size=(msrc, 2)).astype(np.float32) * 60
-    src = src[np.argsort(src[:, 0], kind="stable")]      # spatially ordered
-    tar = rng.normal(size=(s, m, 2)).astype(np.float32) * 60
-    for k in range(s):
-        tar[k] = tar[k][np.argsort(tar[k][:, 0], kind="stable")]
-    tv = rng.random((s, m)) < 0.8
+    src, sv, tar, tv = _nn_problem(1, 4, 512, 256)
     tv[2] = False                                        # empty keyframe
-    sb = pa.tile_bounds(jnp.asarray(src), jnp.ones((msrc,), bool), ts)
-    tb = pa.tile_bounds(jnp.asarray(tar), jnp.asarray(tv), pa._TT_SPARSE)
-    nn, d2 = pa.nn_min_sparse(jnp.asarray(src), sb, jnp.asarray(tar), tb,
-                              jnp.asarray(tv), radius, interpret=True, ts=ts)
-    dn, dd = pa.nn_min(jnp.asarray(src), jnp.asarray(tar), jnp.asarray(tv),
-                       interpret=True)
-    nn, d2, dn, dd = map(np.asarray, (nn, d2, dn, dd))
-    within = dd <= radius * radius
+    args = (jnp.asarray(src), jnp.asarray(sv), jnp.asarray(tar),
+            jnp.asarray(tv))
+    nn, d2 = map(np.asarray, pa.nn_min(*args, 5.0, interpret=True))
+    dn, dd = map(np.asarray, pa.nn_min(*args, interpret=True))
+    within = dd <= 25.0
     assert within.any() and not within.all()
     np.testing.assert_array_equal(nn[within], dn[within])
     np.testing.assert_array_equal(d2[within], dd[within])
-    assert (d2[~within] >= radius * radius).all()
+    assert (d2[~within] >= 25.0).all()
+    assert np.isinf(d2[~within]).any()                   # skipped tiles
     assert np.isinf(d2[2]).all()
 
 
-def test_register_sparse_backend_matches_dense():
-    """Full register() through assoc_method='pallas_sparse' (Morton-sorted
-    cells, interpreter mode) must reproduce the dense backend's pose and
-    association count."""
+def test_tile_bounds_ignore_invalid_points():
+    """Tile bounding boxes cover exactly the valid points of each tile;
+    a tile without valid points gets the never-overlapping box."""
+    from cfear_jax.ops import pallas_assoc as pa
+
+    xy = jnp.asarray([[0.0, 1.0], [5.0, -2.0], [100.0, 100.0], [3.0, 3.0],
+                      [7.0, 7.0], [8.0, 8.0]], jnp.float32)
+    valid = jnp.asarray([True, True, False, False, False, False])
+    b = np.asarray(pa.tile_bounds(xy, valid, 3))
+    np.testing.assert_array_equal(b[0], [0.0, 5.0, -2.0, 1.0])
+    np.testing.assert_array_equal(b[1], [np.inf, -np.inf, np.inf, -np.inf])
+    assert b.shape == (2, 4)
+
+
+def test_register_sparse_backend_matches_dense(interpret_kernel):
+    """Full register() through assoc_method='sparse' (Morton-sorted cells,
+    8 keyframes, interpret mode) must reproduce the dense backend's pose
+    and association count."""
     rng = np.random.default_rng(7)
     true = np.array([2.5, 0.8, 0.06])
     xy, intens = _world_cloud(rng)
     results = {}
-    for method in ("dense", "pallas_sparse"):
+    for method in ("dense", "sparse"):
         cfg = _cfg("P2L", "Huber", "Combined")
         cfg = cfg.replace(
             feature=dataclasses.replace(cfg.feature, max_cells=512,
@@ -499,38 +539,48 @@ def test_register_sparse_backend_matches_dense():
         guess = jnp.asarray(true + np.array([0.3, -0.2, 0.02]), jnp.float32)
         results[method] = registration.register(
             kf_cells, kf_poses, kf_valid, src, guess, cfg=cfg)
-    assert bool(results["pallas_sparse"].success)
+    assert bool(results["sparse"].success)
     np.testing.assert_allclose(
         np.asarray(results["dense"].pose),
-        np.asarray(results["pallas_sparse"].pose), atol=1e-5)
+        np.asarray(results["sparse"].pose), atol=1e-5)
     np.testing.assert_array_equal(
         np.asarray(results["dense"].num_assoc),
-        np.asarray(results["pallas_sparse"].num_assoc))
+        np.asarray(results["sparse"].num_assoc))
 
 
-def test_onehot_attr_lookup_exact():
-    """The MXU one-hot attribute lookup used for large keyframe windows
-    must reproduce the gathered rows bit-for-bit (each one-hot row selects
-    exactly one attrs row; f32 matmul at 'highest' precision)."""
+def test_flat_attr_lookup_matches_per_keyframe_gather():
+    """The association's single flat gather (keyframe axis folded into the
+    row index) returns, for every keyframe, the attribute rows of that
+    keyframe's nearest neighbors."""
+    import math as _math
+
     rng = np.random.default_rng(5)
-    s, m, d = 9, 256, 7
-    attrs = jnp.asarray(rng.normal(size=(s, m, d)).astype(np.float32) * 100)
-    nn = jnp.asarray(rng.integers(0, m, size=(s, m)).astype(np.int32))
-    oh = (nn[..., None] == jnp.arange(m, dtype=jnp.int32)).astype(jnp.float32)
-    g_mxu = jnp.einsum("snm,smd->snd", oh, attrs,
-                       preferred_element_type=jnp.float32)
-    g_ref = jax.vmap(lambda a, i: a[i])(attrs, nn)
-    np.testing.assert_array_equal(np.asarray(g_mxu), np.asarray(g_ref))
+    cfg = _cfg("P2D", "Huber", "Combined")
+    xy, intens = _world_cloud(rng)
+    kf_np = [np.zeros(3), np.array([1.5, 0.3, 0.04]),
+             np.array([3.0, 0.5, 0.08])]
+    kf_cells = _stack_keyframes(
+        [_cells_from_world(xy, intens, p, cfg) for p in kf_np])
+    kf_poses = jnp.asarray(np.stack(kf_np), jnp.float32)
+    src = _cells_from_world(xy, intens, np.array([2.0, 0.4, 0.05]), cfg)
+    attrs = registration._world_attrs(kf_cells, kf_poses, cfg)
+    assoc, tgt = registration._associate_world(
+        attrs, src, jnp.asarray([2.0, 0.4, 0.05], jnp.float32),
+        jnp.ones(3, bool), 4.0, cfg,
+        _math.cos(_math.radians(cfg.registration.angle_outlier_deg)))
+    expect = jax.vmap(lambda a, i: a[i])(attrs, assoc.tar_idx)
+    np.testing.assert_array_equal(np.asarray(tgt["mean"]),
+                                  np.asarray(expect[..., 0:2]))
+    np.testing.assert_array_equal(np.asarray(tgt["sqrt_info"]),
+                                  np.asarray(expect[..., 7:10]))
+    assert bool(assoc.valid.any())
 
 
-def test_fused_lm_matches_packed_xla():
-    """The fused Pallas LM kernels (masked-fori and early-exit variants,
-    interpreter mode on CPU) return the same solve as the packed-XLA
-    while-loop path. ABLATION: the kernels are no longer reachable from
-    config (they measured slower in every variant — r4 418 vs 450 fps,
-    r5 1267 vs ~1293 fps/chip batched WITH the early exit); this pins
-    their correctness as standalone ops."""
-    from cfear_radarodometry_code_public_tpu.ops import pallas_lm
+def test_packed_lm_matches_lm_solve():
+    """The packed LM solve (the hot path) and the einsum-form LM
+    (`_lm_solve`, used with the soft constraint) reach the same pose and
+    cost on one association problem."""
+    import math as _math
 
     rng = np.random.default_rng(31)
     true_pose = np.array([1.2, 0.4, 0.03])
@@ -542,120 +592,83 @@ def test_fused_lm_matches_packed_xla():
     kf_valid = jnp.ones(1, bool)
     src = _cells_from_world(xy, intens, true_pose, cfg)
     guess = jnp.asarray(true_pose + [0.3, -0.2, 0.02], jnp.float32)
-    r_x = registration.register(kf_cells, kf_poses, kf_valid, src, guess,
-                                cfg=cfg)
-    assert bool(r_x.success)
-    # drive the kernels directly on a packed association problem
-    from cfear_radarodometry_code_public_tpu.ops.registration import (
-        _associate_world, _world_attrs, resolve_assoc_method)
-    import math as _math
-    method = resolve_assoc_method(cfg, src.valid.shape[0],
-                                  kf_cells.valid.shape[1], 1)
-    attrs = _world_attrs(kf_cells, kf_poses, cfg)
-    assoc, tgt = _associate_world(
+    attrs = registration._world_attrs(kf_cells, kf_poses, cfg)
+    assoc, tgt = registration._associate_world(
         attrs, src, guess, kf_valid, 2.0 * cfg.registration.assoc_radius,
-        cfg, _math.cos(_math.radians(cfg.registration.angle_outlier_deg)),
-        method)
-    packed = pallas_lm.pack_associations(
+        cfg, _math.cos(_math.radians(cfg.registration.angle_outlier_deg)))
+    packed = registration.pack_associations(
         src.mean, tgt, assoc.weight * assoc.valid, cfg)
-    p_ref, c_ref, _, _ = pallas_lm.lm_solve_packed_xla(packed, guess, cfg)
-    for ee in (False, True):
-        p_k, c_k, _, _ = pallas_lm.lm_solve_fused(
-            packed, guess, cfg, interpret=True, early_exit=ee)
-        np.testing.assert_allclose(np.asarray(p_k), np.asarray(p_ref),
-                                   atol=1e-4, err_msg=f"early_exit={ee}")
-        np.testing.assert_allclose(float(c_k), float(c_ref), rtol=1e-3)
+    assert packed.shape == (8, assoc.weight.size)
+    p_packed, c_packed, steps, _ = registration.lm_solve_packed_xla(
+        packed, guess, cfg)
+    ref = registration._lm_solve(guess, src, tgt, assoc, cfg, guess,
+                                 jnp.asarray(0.0, jnp.float32), None)
+    assert int(steps) >= 1
+    np.testing.assert_allclose(np.asarray(p_packed), np.asarray(ref.pose),
+                               atol=1e-4)
+    np.testing.assert_allclose(float(c_packed), float(ref.cost), rtol=1e-3)
 
 
-def test_sparse_attrs_fused_lookup_matches_gather():
-    """`nn_min_sparse_attrs` (in-kernel one-hot attribute selection) must
-    reproduce attrs[nn] BIT-FOR-BIT on every row whose 1-NN lies within
-    the radius, and agree with `nn_min_sparse` on (nn, d2)."""
-    from cfear_radarodometry_code_public_tpu.ops import pallas_assoc as pa
+@pytest.mark.parametrize("platform,spatial_sort,s_act,expect", [
+    ("cpu", True, 50, "dense"),
+    ("gpu", False, 50, "dense"),
+    ("gpu", True, 4, "dense"),
+    ("gpu", True, 16, "sparse"),
+])
+def test_assoc_policy_keyed_on_platform(monkeypatch, platform, spatial_sort,
+                                        s_act, expect):
+    """`assoc_method="auto"` resolves by platform: dense XLA on the CPU;
+    on the GPU the block-sparse kernel for large Morton-ordered windows.
+    An explicit method is never overridden."""
+    from cfear_jax.utils import runtime
 
-    rng = np.random.default_rng(5)
-    s, m, msrc, ts, radius, d = 4, 1024, 512, 256, 5.0, 7
-    src = rng.normal(size=(msrc, 2)).astype(np.float32) * 60
-    src = src[np.argsort(src[:, 0], kind="stable")]
-    tar = rng.normal(size=(s, m, 2)).astype(np.float32) * 60
-    for k in range(s):
-        tar[k] = tar[k][np.argsort(tar[k][:, 0], kind="stable")]
-    tv = rng.random((s, m)) < 0.8
-    attrs = rng.normal(size=(s, m, d)).astype(np.float32)
-    d_pad = 8
-    at = np.zeros((s, d_pad, m), np.float32)
-    at[:, :d] = np.swapaxes(attrs, -1, -2)
-    sb = pa.tile_bounds(jnp.asarray(src), jnp.ones((msrc,), bool), ts)
-    tb = pa.tile_bounds(jnp.asarray(tar), jnp.asarray(tv), pa._TT_SPARSE)
-    nn, d2, g_t = pa.nn_min_sparse_attrs(
-        jnp.asarray(src), sb, jnp.asarray(tar), tb, jnp.asarray(tv),
-        jnp.asarray(at), radius, interpret=True, ts=ts)
-    nn0, d20 = pa.nn_min_sparse(jnp.asarray(src), sb, jnp.asarray(tar), tb,
-                                jnp.asarray(tv), radius, interpret=True,
-                                ts=ts)
-    nn, d2, g_t = map(np.asarray, (nn, d2, g_t))
-    np.testing.assert_array_equal(nn, np.asarray(nn0))
-    np.testing.assert_array_equal(d2, np.asarray(d20))
-    g = np.swapaxes(g_t, -1, -2)[..., :d]              # (S, Msrc, D)
-    within = d2 <= radius * radius
-    assert within.any()
-    expect = np.take_along_axis(attrs, nn[..., None], axis=1)
-    np.testing.assert_array_equal(g[within], expect[within])
-    # rows with every pair skipped carry zeros
-    assert (g[~np.isfinite(d2)] == 0.0).all()
+    monkeypatch.setattr(runtime.jax, "default_backend", lambda: platform)
+    cfg = _cfg()
+    cfg = cfg.replace(feature=dataclasses.replace(
+        cfg.feature, spatial_sort=spatial_sort))
+    assert registration.resolve_assoc_method(cfg, s_act) == expect
+    forced = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method="grid"))
+    assert registration.resolve_assoc_method(forced, s_act) == "grid"
 
 
-def test_sparse_multi_kernel_matches_sparse():
-    """`nn_min_sparse_multi` (in-kernel keyframe fori_loop + bbox tile
-    skipping) must reproduce `nn_min_sparse` exactly — same arithmetic,
-    same lowest-index tie-break, same (+inf, 0) skipped rows."""
-    from cfear_radarodometry_code_public_tpu.ops import pallas_assoc as pa
+def test_assoc_policy_rejects_unknown_platform(monkeypatch):
+    """A platform the engine has no path for is an error, not a default."""
+    from cfear_jax.utils import runtime
 
-    rng = np.random.default_rng(9)
-    s, m, msrc, ts, radius = 6, 1024, 512, 256, 5.0
-    src = rng.normal(size=(msrc, 2)).astype(np.float32) * 60
-    src = src[np.argsort(src[:, 0], kind="stable")]
-    tar = rng.normal(size=(s, m, 2)).astype(np.float32) * 60
-    for k in range(s):
-        tar[k] = tar[k][np.argsort(tar[k][:, 0], kind="stable")]
-    tv = rng.random((s, m)) < 0.8
-    tv[3] = False                                        # empty keyframe
-    sb = pa.tile_bounds(jnp.asarray(src), jnp.ones((msrc,), bool), ts)
-    tb = pa.tile_bounds(jnp.asarray(tar), jnp.asarray(tv), pa._TT_SPARSE)
-    a = pa.nn_min_sparse(jnp.asarray(src), sb, jnp.asarray(tar), tb,
-                         jnp.asarray(tv), radius, interpret=True, ts=ts)
-    b = pa.nn_min_sparse_multi(jnp.asarray(src), sb, jnp.asarray(tar), tb,
-                               jnp.asarray(tv), radius, interpret=True,
-                               ts=ts)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+    monkeypatch.setattr(runtime.jax, "default_backend", lambda: "metal")
+    with pytest.raises(RuntimeError, match="unsupported JAX platform"):
+        registration.resolve_assoc_method(_cfg(), 4)
+    monkeypatch.setattr(runtime.jax, "default_backend", lambda: "cuda")
+    assert runtime.platform() == "gpu"
 
 
-def test_sparse_unrolled_kernel_matches_sparse():
-    """`nn_min_sparse_unrolled` (statically-unrolled in-kernel keyframe
-    loop, pl.when-guarded scratch accumulation) must reproduce
-    `nn_min_sparse` exactly — tie-breaks and skipped-row (+inf, 0)
-    semantics included."""
-    from cfear_radarodometry_code_public_tpu.ops import pallas_assoc as pa
+def test_platform_follows_default_device():
+    """A CPU cross-check inside a GPU process (`jax.default_device`) takes
+    the CPU code paths."""
+    from cfear_jax.utils import runtime
 
-    rng = np.random.default_rng(13)
-    s, m, msrc, ts, radius = 6, 1024, 512, 256, 5.0
-    src = rng.normal(size=(msrc, 2)).astype(np.float32) * 60
-    src = src[np.argsort(src[:, 0], kind="stable")]
-    tar = rng.normal(size=(s, m, 2)).astype(np.float32) * 60
-    for k in range(s):
-        tar[k] = tar[k][np.argsort(tar[k][:, 0], kind="stable")]
-    tv = rng.random((s, m)) < 0.8
-    tv[2] = False                                        # empty keyframe
-    sb = pa.tile_bounds(jnp.asarray(src), jnp.ones((msrc,), bool), ts)
-    tb = pa.tile_bounds(jnp.asarray(tar), jnp.asarray(tv), pa._TT_SPARSE)
-    a = pa.nn_min_sparse(jnp.asarray(src), sb, jnp.asarray(tar), tb,
-                         jnp.asarray(tv), radius, interpret=True, ts=ts)
-    b = pa.nn_min_sparse_unrolled(jnp.asarray(src), sb, jnp.asarray(tar),
-                                  tb, jnp.asarray(tv), radius,
-                                  interpret=True, ts=ts)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+    with jax.default_device(jax.devices("cpu")[0]):
+        assert runtime.platform() == "cpu"
+    assert runtime.platform() == "cpu"
+
+
+@pytest.mark.gpu
+def test_nn_kernel_compiled_matches_reference(gpu_device):
+    """The kernel compiled for the card matches the XLA reference at a
+    CFEAR-3 width (S=4, M=1024)."""
+    from cfear_jax.ops import pallas_assoc
+
+    src, sv, tar, tv = _nn_problem(11, 4, 1024, 1024)
+    with jax.default_device(gpu_device):
+        nn, d2 = pallas_assoc.nn_min(jnp.asarray(src), jnp.asarray(sv),
+                                     jnp.asarray(tar), jnp.asarray(tv), 4.0)
+        rn, rd = registration.nn_dense(
+            jnp.asarray(src), jnp.asarray(tar), jnp.asarray(tv))
+    nn, d2, rn, rd = map(np.asarray, (nn, d2, rn, rd))
+    within = rd <= 16.0
+    np.testing.assert_array_equal(nn[within], rn[within])
+    np.testing.assert_allclose(d2[within], rd[within], rtol=1e-6, atol=1e-6)
 
 
 def test_dcs_rho_is_consistent_antiderivative():
@@ -663,7 +676,7 @@ def test_dcs_rho_is_consistent_antiderivative():
     MONOTONE non-decreasing and bounded (the former rho = w*s peaked at
     s=a and DECREASED beyond — any cost comparison built on it rewarded
     exploding outliers, which silently broke pose-graph step acceptance)."""
-    from cfear_radarodometry_code_public_tpu.ops import losses
+    from cfear_jax.ops import losses
 
     a = 4.0
     s = jnp.linspace(0.0, 400.0, 4001)

@@ -54,7 +54,7 @@ chunk = int(sys.argv[5])
 passes = int(sys.argv[6])
 
 if nproc > 1:
-    from cfear_radarodometry_code_public_tpu.parallel import distributed
+    from cfear_jax.parallel import distributed
     distributed.initialize(f"127.0.0.1:{port}", num_processes=nproc,
                            process_id=pid)
     assert jax.process_count() == nproc
@@ -64,10 +64,10 @@ import numpy as np
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.models import odometry
-from cfear_radarodometry_code_public_tpu.parallel import mesh as meshmod
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.models import odometry
+from cfear_jax.parallel import mesh as meshmod
 
 cfg = preset("CFEAR-3", dataset="synthetic")
 cfg = cfg.replace(feature=dataclasses.replace(cfg.feature, max_cells=256),
@@ -116,7 +116,7 @@ fetch_sync(out.pose)
 # timed passes, barrier-separated so every process times the same
 # co-scheduled compute region (the COMPUTE weak-scaling of the sharded
 # step; the CPU runtime's ~3.5 s per-launch cross-process coordination
-# barrier — absent on hardware-synchronized TPU pods — is amortized by
+# barrier — absent on hardware-synchronized accelerator clusters — is amortized by
 # the chunk=96 single-launch pass)
 for k in range(passes):
     barrier(f"pass_{k}")
@@ -221,7 +221,7 @@ def test_weak_scaling_sharded_odometry():
             "mesh; baseline = 1 pinned process, identical per-process "
             "work; 96-frame chunks = one launch per timed pass so the CPU "
             "runtime's ~3.5 s per-launch cross-process barrier — absent on "
-            "real TPU pods — is amortized out of the compute measurement; "
+            "accelerator clusters — is amortized out of the compute measurement; "
             f"{trials} interleaved launches per mode x {passes} "
             "barrier-separated timed passes, assert on the median)\n"
             f"single-process fps samples: "

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cfear_radarodometry_code_public_tpu.utils import se2
+from cfear_jax.utils import se2
 
 
 def rand_pose(rng):

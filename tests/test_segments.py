@@ -2,11 +2,11 @@ import dataclasses
 
 import numpy as np
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse
-from cfear_radarodometry_code_public_tpu.models import odometry
-from cfear_radarodometry_code_public_tpu.parallel import segments
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.eval.trajectory import ate_rmse
+from cfear_jax.models import odometry
+from cfear_jax.parallel import segments
 
 
 def _cfg():
@@ -47,7 +47,7 @@ def test_segmented_matches_serial():
 
 def test_segmented_on_mesh():
     import jax
-    from cfear_radarodometry_code_public_tpu.parallel.mesh import make_mesh
+    from cfear_jax.parallel.mesh import make_mesh
     cfg = _cfg()
     images, gt = synthetic.make_sequence(seed=43, n_frames=32, cfg=cfg)
     mesh = make_mesh(4)

@@ -3,10 +3,10 @@ import dataclasses
 import numpy as np
 import jax
 
-from cfear_radarodometry_code_public_tpu.config import preset
-from cfear_radarodometry_code_public_tpu.datasets import synthetic
-from cfear_radarodometry_code_public_tpu.models import odometry
-from cfear_radarodometry_code_public_tpu.parallel import mesh as pmesh
+from cfear_jax.config import preset
+from cfear_jax.datasets import synthetic
+from cfear_jax.models import odometry
+from cfear_jax.parallel import mesh as pmesh
 
 
 def _cfg():
@@ -42,7 +42,7 @@ def test_multi_sequence_sharded_matches_single():
     # an unbatched run is not guaranteed (vmapped while_loops/conds reorder
     # f32 reductions, and a near-threshold keyframe gate may flip), so check
     # functional equivalence instead
-    from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse
+    from cfear_jax.eval.trajectory import ate_rmse
     for s in range(b):
         err = np.linalg.norm(trajs[s, :, :2] - gts[s][:, :2], axis=1).max()
         assert err < 1.0, (s, err)

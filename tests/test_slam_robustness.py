@@ -18,7 +18,7 @@ backbone; robustifying them would let the optimizer ignore the chain.
 import numpy as np
 import jax
 
-from cfear_radarodometry_code_public_tpu.models import posegraph
+from cfear_jax.models import posegraph
 from test_posegraph import _noisy_ring_graph
 
 
@@ -108,8 +108,8 @@ def test_candidate_edges_never_optimized():
 def test_distributed_optimizer_matches_robust_semantics():
     """The edge-sharded optimizer must apply the same robust kernel: its
     poisoned-graph result matches the single-device optimizer."""
-    from cfear_radarodometry_code_public_tpu.parallel.mesh import make_mesh
-    from cfear_radarodometry_code_public_tpu.parallel.pgo import (
+    from cfear_jax.parallel.mesh import make_mesh
+    from cfear_jax.parallel.pgo import (
         distributed_optimize)
 
     rng = np.random.default_rng(0)

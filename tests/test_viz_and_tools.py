@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cfear_radarodometry_code_public_tpu import eval_trajectories, radar_filter
-from cfear_radarodometry_code_public_tpu.eval import viz
+from cfear_jax import eval_trajectories, radar_filter
+from cfear_jax.eval import viz
 
 
 def test_radar_filter_cli(tmp_path):
@@ -20,7 +20,7 @@ def test_radar_filter_cli(tmp_path):
 
 
 def test_eval_cli(tmp_path):
-    from cfear_radarodometry_code_public_tpu.eval import trajectory
+    from cfear_jax.eval import trajectory
     # fabricate a run directory
     t = np.linspace(0, 2 * np.pi, 300)
     gt = np.stack([100 * np.cos(t), 100 * np.sin(t), t + np.pi / 2], -1)
@@ -39,9 +39,9 @@ def test_eval_cli(tmp_path):
 
 def test_cost_surface_real():
     import dataclasses
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu.ops import (features, filtering,
+    from cfear_jax.config import preset
+    from cfear_jax.datasets import synthetic
+    from cfear_jax.ops import (features, filtering,
                                                          registration)
     cfg = preset("CFEAR-3", dataset="synthetic")
     cfg = cfg.replace(feature=dataclasses.replace(cfg.feature, max_cells=256),
@@ -69,7 +69,7 @@ def test_live_viz_follows_growing_tum(tmp_path):
 
     import numpy as np
 
-    from cfear_radarodometry_code_public_tpu.eval import live_viz
+    from cfear_jax.eval import live_viz
 
     tum = tmp_path / "poses.tum"
 

@@ -29,7 +29,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 def main(argv=None):
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from cfear_radarodometry_code_public_tpu.parallel import sweep
+    from cfear_jax.parallel import sweep
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--output-root", default="/tmp/cfear_sweep")

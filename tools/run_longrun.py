@@ -1,8 +1,7 @@
 """Long-run drift artifact at current defaults + mid-run checkpoint/resume.
 
-VERDICT r3 demand #4: the only 1000+-frame artifact was a round-2-era run
-(9 fps, image ingest) and no committed number used the full KITTI
-100-800 m protocol. This driver runs >=1024-frame sequences at the
+No committed number used the full KITTI 100-800 m protocol before this
+driver. It runs >=1024-frame sequences at the
 round-4 bench defaults (host-compact ingest, point_budget=8192,
 max_cells=1024, Morton spatial sort, block-sparse association):
 
@@ -15,10 +14,10 @@ Each easy run is ALSO executed split at the midpoint through
 bit-identical to the unsplit one (the checkpoint carries the full
 scan-carry state). Scores use the real KITTI evaluator (`eval/kitti.py`,
 100-800 m subsequences — the metric the reference is judged by,
-README.md:68-90). Writes `eval_results/LONGRUN_1024_tpu.txt`.
+README.md:68-90). Writes `eval_results/LONGRUN_1024.txt`.
 
 Usage: python tools/run_longrun.py [--frames 1024] [--out ...]
-(TPU by default; --cpu for a small smoke run.)
+(default JAX platform; --cpu for a small smoke run.)
 """
 
 import argparse
@@ -28,7 +27,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 
 import numpy as np
 
@@ -47,16 +45,18 @@ def main(argv=None):
     ap.add_argument("--health-every", type=int, default=8,
                     help="reverse-registration health check period "
                          "(odometry.health_check_every; 0 disables)")
-    ap.add_argument("--out", default="eval_results/LONGRUN_1024_tpu.txt")
+    ap.add_argument("--out", default="eval_results/LONGRUN_1024.txt")
     args = ap.parse_args(argv)
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu.models import odometry
-    from cfear_radarodometry_code_public_tpu.eval.kitti import kitti_drift
+    from cfear_jax.utils.runtime import setup_compile_cache
+    setup_compile_cache()
+    from cfear_jax.config import preset
+    from cfear_jax.datasets import synthetic
+    from cfear_jax.models import odometry
+    from cfear_jax.eval.kitti import kitti_drift
 
     cfg = preset("CFEAR-3", dataset="oxford")
     cfg = cfg.replace(
@@ -91,9 +91,8 @@ def main(argv=None):
 
         runner = odometry.OdometryRunner(cfg, chunk=args.chunk,
                                          ingest="host")
-        # untimed warm pass: compile + remote-backend program/buffer ramp
-        # (first pass measures ~2 fps, same-runner repeats ~280 fps —
-        # OdometryRunner.reset keeps the jitted executables)
+        # untimed warm pass: compile (OdometryRunner.reset keeps the
+        # jitted executables for the timed passes)
         runner.process(images)
         _ = np.asarray(runner.outputs[-1].pose)
         walls = []

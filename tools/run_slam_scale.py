@@ -11,8 +11,8 @@ after closure. Done-criterion: closed-loop ATE < odometry ATE, with host
 stages visibly sub-linear in the table.
 
 Usage: python tools/run_slam_scale.py [--frames 4096 --lap-frames 1024]
-(TPU by default; --cpu --frames 256 for a smoke run.)
-Writes eval_results/SLAM_SCALE_tpu.txt.
+(default JAX platform; --cpu --frames 256 for a smoke run.)
+Writes eval_results/SLAM_SCALE.txt.
 """
 
 import argparse
@@ -22,7 +22,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 
 import numpy as np
 
@@ -47,15 +46,17 @@ def main(argv=None):
                          "preconditioner (long-wavelength modes)")
     ap.add_argument("--mini-loops", action="store_true")
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--out", default="eval_results/SLAM_SCALE_tpu.txt")
+    ap.add_argument("--out", default="eval_results/SLAM_SCALE.txt")
     args = ap.parse_args(argv)
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from cfear_radarodometry_code_public_tpu.config import preset
-    from cfear_radarodometry_code_public_tpu.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu.models import (loopclosure,
+    from cfear_jax.utils.runtime import setup_compile_cache
+    setup_compile_cache()
+    from cfear_jax.config import preset
+    from cfear_jax.datasets import synthetic
+    from cfear_jax.models import (loopclosure,
                                                             odometry,
                                                             posegraph)
 
@@ -153,7 +154,7 @@ def main(argv=None):
     # loop-residual health: the optimizer must close the loop-OBSERVABLE
     # error even when ATE-vs-GT is dominated by lap-coherent systematic
     # drift that no loop can see (all laps drift together)
-    from cfear_radarodometry_code_public_tpu.utils import se2 as _se2
+    from cfear_jax.utils import se2 as _se2
 
     def _loop_res(poses_arr):
         r = []

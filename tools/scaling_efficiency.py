@@ -7,7 +7,7 @@ per-host interference, not by the network. This tool measures exactly that
 bound on the machine it runs on: it pins identical odometry workloads to
 disjoint CPU cores and compares per-worker throughput solo vs concurrent —
 a 2-"host" weak-scaling proxy this zero-egress single-chip environment can
-actually measure (no second TPU host exists here).
+actually measure (no second accelerator host exists here).
 
     efficiency = mean(concurrent worker fps) / solo worker fps
 
@@ -19,19 +19,24 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 
 def _run_worker(core: int, args, out_dir: str) -> subprocess.Popen:
     cmd = ["taskset", "-c", str(core), sys.executable, "-m",
-           "cfear_radarodometry_code_public_tpu.offline_odometry",
+           "cfear_jax.offline_odometry",
            "--dataset", "synthetic", "--cpu",
            "--n-frames", str(args.n_frames), "--seed", str(args.seed),
            "--chunk", "10", "--no-save-graph", "--output-dir", out_dir]
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
+    # a compile cache of its own: every worker compiles cold, so the solo
+    # and concurrent runs do the same work
+    env["JAX_COMPILATION_CACHE_DIR"] = os.path.join(out_dir, "jax_cache")
     # one compute thread per worker: each "host" gets identical resources
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_cpu_multi_thread_eigen=false "
@@ -68,13 +73,15 @@ def main():
         return
 
     t0 = time.time()
-    solo = _fps(_run_worker(cores[0], args, "/tmp/scale_solo"))
+    tmp = tempfile.mkdtemp(prefix="scale_")
+    solo = _fps(_run_worker(cores[0], args, os.path.join(tmp, "solo")))
     print(f"solo worker (core {cores[0]}): {solo:.2f} fps "
           f"[{time.time() - t0:.0f}s]", file=sys.stderr)
 
-    procs = [_run_worker(cores[i], args, f"/tmp/scale_w{i}")
+    procs = [_run_worker(cores[i], args, os.path.join(tmp, f"w{i}"))
              for i in range(args.workers)]
     fps = [_fps(p) for p in procs]
+    shutil.rmtree(tmp, ignore_errors=True)
     eff = (sum(fps) / len(fps)) / solo
     print(f"concurrent x{args.workers}: {[round(f, 2) for f in fps]} fps "
           f"-> efficiency {eff:.3f}", file=sys.stderr)
