@@ -336,7 +336,9 @@ def make_batched_step(cfg: CFEARConfig, ingest: str = "image"):
                 lambda p: features.compute_raw_cells(p, cfg))(pts)
         else:
             cells = features.compute_cells_batched(pts, cfg)
-        return jax.vmap(lambda s, c: _fuse_frame(s, c, cfg))(states, cells)
+        cfg_lane = registration.for_lanes(cfg, cells.valid.shape[0])
+        return jax.vmap(lambda s, c: _fuse_frame(s, c, cfg_lane))(states,
+                                                                   cells)
 
     return stepb
 

@@ -8,11 +8,11 @@ mean / 2x2 covariance / smallest-eigenvector normal per cell.
 
 Here the kd-tree + per-cell loops become three dense array passes:
 
-1. scatter-add points into a static voxel grid -> per-voxel unweighted
+1. sum points per voxel of a static grid -> per-voxel unweighted
    centroid (the voxel-grid "sample mean" of `pointnormal.cpp:277-280`);
 2. for each of the (2*noff+1)^2 neighbor offsets, test every point against
    the neighbor voxel's centroid (exact circular radius test, identical to
-   the kd radius search) and scatter-add weighted moments into that voxel's
+   the kd radius search) and sum weighted moments into that voxel's
    accumulator — coordinates are accumulated RELATIVE to the voxel center so
    f32 moments stay well-conditioned;
 3. closed-form 2x2 eigendecomposition per voxel (no LAPACK), validity gates
@@ -125,6 +125,52 @@ def budget_points(points: PointCloud, budget: int) -> PointCloud:
         peak=kept[..., 4] > 0.5)
 
 
+def _segment_plan(seg, num_segments: int):
+    """Sort plan for `_segment_sum_lanes`: seg (B, N) int32 segment ids in
+    [0, num_segments]; id num_segments marks rows to drop. Returns (flat
+    row order (B*N,), segment-start flags of the sorted rows (B, N), flat
+    destination of each sorted row (B*N,): lane * num_segments + id for the
+    last row of a segment, an index past the output for every other row)."""
+    b, n = seg.shape
+    order = jnp.argsort(seg, axis=-1, stable=True)
+    seg_s = jnp.take_along_axis(seg, order, axis=-1)
+    edge = seg_s[:, 1:] != seg_s[:, :-1]
+    ones = jnp.ones((b, 1), bool)
+    start = jnp.concatenate([ones, edge], -1)
+    last = jnp.concatenate([edge, ones], -1)
+    lane = jnp.arange(b, dtype=jnp.int32)[:, None]
+    row = lane * n + jnp.arange(n, dtype=jnp.int32)[None]
+    # rows that end no segment get distinct out-of-range slots (dropped)
+    dst = jnp.where(last & (seg_s < num_segments), lane * num_segments + seg_s,
+                    b * num_segments + row)
+    return (lane * n + order).reshape(b * n), start, dst.reshape(b * n)
+
+
+def _segment_sum_lanes(data, plan, num_segments: int):
+    """Per-lane segment sum with a fixed order of additions: data (B, N, C)
+    -> (B, num_segments, C).
+
+    `jax.ops.segment_sum` is a scatter-add, which the GPU runs with atomics:
+    the order in which rows land, and so the last bits of every sum, change
+    from run to run. Here each lane's rows are sorted by segment (stable), a
+    segmented inclusive scan along the lane's own axis sums each segment,
+    and each segment's total (its last row) is written once. The order of
+    every addition depends only on the lane's own rows, so a lane gives the
+    same bits from run to run, alone and in a batch."""
+    b, n, c = data.shape
+    order, start, dst = plan
+    rows = data.reshape(b * n, c)[order].reshape(b, n, c)
+
+    def add(lo, hi):
+        (f_lo, v_lo), (f_hi, v_hi) = lo, hi
+        return f_lo | f_hi, jnp.where(f_hi[..., None], v_hi, v_lo + v_hi)
+
+    _, csum = jax.lax.associative_scan(add, (start, rows), axis=1)
+    out = jnp.zeros((b * num_segments, c), data.dtype).at[dst].set(
+        csum.reshape(b * n, c), mode="drop", unique_indices=True)
+    return out.reshape(b, num_segments, c)
+
+
 def compute_cells(points: PointCloud, cfg: CFEARConfig) -> CellMap:
     """Point cloud -> oriented surface points (sensor-local frame)."""
     batched = compute_cells_batched(
@@ -135,16 +181,16 @@ def compute_cells(points: PointCloud, cfg: CFEARConfig) -> CellMap:
 def compute_cells_batched(points: PointCloud, cfg: CFEARConfig) -> CellMap:
     """Batched oriented-surface-point extraction: leaves carry (B, N, ...).
 
-    Identical per-lane results to `jax.vmap(compute_cells)`, but all lanes
-    share ONE segment_sum per stage (segment ids offset by lane*ncells) and
-    ONE neighborhood gather instead of one per lane.
+    Bit-identical per-lane results to `compute_cells` on each lane alone
+    (`_segment_sum_lanes` sums in a per-lane order), with ONE segment sum
+    per stage and ONE neighborhood gather for all lanes.
     """
     feat = cfg.feature
     leaf, dim, noff = _grid_geometry(cfg)
     ncells = dim * dim
     p = feat.point_budget
     if p and p < points.xy.shape[1]:
-        # row compaction: every scatter/gather below is row-bound, and the
+        # row compaction: every sort/gather below is row-bound, and the
         # (A, k) candidate array carries many invalid slots
         points = budget_points(points, p)
 
@@ -157,15 +203,13 @@ def compute_cells_batched(points: PointCloud, cfg: CFEARConfig) -> CellMap:
     vidx = jnp.floor(xy / leaf).astype(jnp.int32) + dim // 2
     in_grid = valid & jnp.all((vidx >= 0) & (vidx < dim), axis=-1)
     vid = vidx[..., 0] * dim + vidx[..., 1]                   # (B, N)
-    # lane-offset flat segment ids; one shared overflow slot at b*ncells
-    vid_flat = jnp.where(in_grid, lane * ncells + vid, b * ncells)
+    # both stages sum over each point's own voxel: one sort plan serves both
+    plan = _segment_plan(jnp.where(in_grid, vid, ncells), ncells)
     ones = in_grid.astype(jnp.float32)
-    # one fused scatter for [count, sum_x, sum_y] (never scatter twice)
-    s1 = jax.ops.segment_sum(
-        jnp.concatenate([ones[..., None], xy * ones[..., None]],
-                        -1).reshape(b * n_pts, 3),
-        vid_flat.reshape(b * n_pts),
-        num_segments=b * ncells + 1)[:b * ncells].reshape(b, ncells, 3)
+    # one fused segment sum for [count, sum_x, sum_y]
+    s1 = _segment_sum_lanes(
+        jnp.concatenate([ones[..., None], xy * ones[..., None]], -1),
+        plan, ncells)
     cnt_vox, sum_vox = s1[..., 0], s1[..., 1:3]               # (B, ncells, .)
     centroid = sum_vox / jnp.maximum(cnt_vox, 1.0)[..., None]
     occupied = cnt_vox >= 1.0
@@ -193,11 +237,11 @@ def compute_cells_batched(points: PointCloud, cfg: CFEARConfig) -> CellMap:
     nb_pt = nb_pt.reshape(b, n_pts, 3 * len(offsets))
 
     # Per-offset membership masks (per-point circular gate vs the TARGET
-    # voxel's centroid). The scatter itself targets each point's OWN voxel:
+    # voxel's centroid). The sum itself targets each point's OWN voxel:
     # for a fixed offset the target id is own_id + const, so the per-offset
-    # scatter result equals the own-voxel scatter ROLLED by the offset on the
-    # dense grid — ONE (B*N)-row scatter with 9x7 masked columns replaces the
-    # (9*B*N)-row scatter. Moments
+    # sum equals the own-voxel sum ROLLED by the offset on the dense grid —
+    # ONE (B*N)-row segment sum with 9x7 masked columns replaces the
+    # (9*B*N)-row one. Moments
     # are accumulated about the OWN voxel center and shifted to the target
     # center in closed form afterwards (rel_t = rel_own - offset*leaf).
     own_cx = (vidx[..., 0].astype(jnp.float32) - dim // 2 + 0.5) * leaf
@@ -224,10 +268,8 @@ def compute_cells_batched(points: PointCloud, cfg: CFEARConfig) -> CellMap:
 
     data = (mem[..., :, None] * base[..., None, :]).reshape(
         b, n_pts, len(offsets) * 7)
-    acc_own = jax.ops.segment_sum(
-        data.reshape(b * n_pts, -1), vid_flat.reshape(b * n_pts),
-        num_segments=b * ncells + 1)[:b * ncells].reshape(
-            b, dim, dim, len(offsets), 7)
+    acc_own = _segment_sum_lanes(data, plan, ncells).reshape(
+        b, dim, dim, len(offsets), 7)
 
     # roll each offset's grid onto its target voxel and shift the moment
     # origin from the own center to the target center (d = offset * leaf)

@@ -6,8 +6,8 @@ its squared distance, computed in the difference form
 100 m ranges, and the arithmetic of the reference's kd-tree 1-NN
 (`pointnormal.cpp:238-254`).
 
-One program handles one (keyframe, source tile of `ts` rows). It loops over
-the keyframe's target tiles of `tt` columns; a target tile whose bounding box
+One program handles one (keyframe, source tile of TS rows). It loops over
+the keyframe's target tiles of TT columns; a target tile whose bounding box
 lies farther than `radius` from the source tile's bounding box is skipped by
 a scalar branch. The running (min, argmin) stays in registers. Skipping is
 exact for the association gate: a skipped tile holds only distances beyond
@@ -19,7 +19,7 @@ Cells are spatially coherent in tile order only when the cell maps are
 Morton-ordered (`feature.spatial_sort`); otherwise every bounding box spans
 the scan and the kernel runs dense.
 
-Each program keeps a (ts, tt) running minimum and the tile it came from,
+Each program keeps a (TS, TT) running minimum and the tile it came from,
 updated elementwise, and reduces it once at the end. Strict `<` across
 tiles and the lowest index among equal minima keep `jnp.argmin`'s
 lowest-index tie-break. The wrapper pads both cell axes to
@@ -60,16 +60,16 @@ def tile_bounds(xy, valid, tile: int):
 
 
 def _nn_kernel(r2_ref, sb_ref, sx_ref, sy_ref, tb_ref, tx_ref, ty_ref,
-               tm_ref, nn_ref, d2_ref, *, n_tt: int, tt: int):
+               tm_ref, nn_ref, d2_ref, *, n_tt: int):
     sx = sx_ref[...][:, None]                          # (TS, 1)
     sy = sy_ref[...][:, None]
     r2 = r2_ref[0]
     sxmin, sxmax, symin, symax = sb_ref[0], sb_ref[1], sb_ref[2], sb_ref[3]
 
     def hit(off, best, boff):
-        tx = tx_ref[pl.ds(off, tt)][None, :]           # (1, TT)
-        ty = ty_ref[pl.ds(off, tt)][None, :]
-        tm = tm_ref[pl.ds(off, tt)][None, :]           # 0 valid, +inf not
+        tx = tx_ref[pl.ds(off, TT)][None, :]           # (1, TT)
+        ty = ty_ref[pl.ds(off, TT)][None, :]
+        tm = tm_ref[pl.ds(off, TT)][None, :]           # 0 valid, +inf not
         dx = sx - tx                                   # (TS, TT)
         dy = sy - ty
         d2 = dx * dx + dy * dy + tm
@@ -84,10 +84,10 @@ def _nn_kernel(r2_ref, sb_ref, sx_ref, sy_ref, tb_ref, tx_ref, ty_ref,
         gapy = jnp.maximum(jnp.maximum(tb_ref[4 * jt + 2] - symax,
                                        symin - tb_ref[4 * jt + 3]), 0.0)
         return jax.lax.cond(gapx * gapx + gapy * gapy <= r2,
-                            functools.partial(hit, jt * tt),
+                            functools.partial(hit, jt * TT),
                             lambda b, o: (b, o), *carry)
 
-    shape = (sx.shape[0], tt)
+    shape = (sx.shape[0], TT)
     best, boff = jax.lax.fori_loop(
         0, n_tt, body, (jnp.full(shape, jnp.inf, jnp.float32),
                         jnp.zeros(shape, jnp.int32)))
@@ -107,11 +107,9 @@ def _pad_axis(a, n: int, value):
     return jnp.pad(a, widths, constant_values=value)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "ts", "tt",
-                                             "num_warps"))
+@functools.partial(jax.jit, static_argnames=("interpret",))
 def nn_min(src_xy, src_valid, tar_xy, tar_valid, radius=math.inf, *,
-           interpret: bool = False, ts: int = TS, tt: int = TT,
-           num_warps: int = NUM_WARPS):
+           interpret: bool = False):
     """Exact 1-NN within `radius` of each source point per keyframe.
 
     src_xy (M_src, 2), src_valid (M_src,), tar_xy (S, M_tar, 2),
@@ -124,9 +122,9 @@ def nn_min(src_xy, src_valid, tar_xy, tar_valid, radius=math.inf, *,
     anything. `interpret=True` runs the kernel on the CPU (tests only)."""
     s, m_tar = tar_valid.shape
     m_src = src_xy.shape[0]
-    n_st = -(-m_src // ts)
-    n_tt = -(-m_tar // tt)
-    ms_pad, mt_pad = n_st * ts, n_tt * tt
+    n_st = -(-m_src // TS)
+    n_tt = -(-m_tar // TT)
+    ms_pad, mt_pad = n_st * TS, n_tt * TT
 
     src_xy = src_xy.astype(jnp.float32)
     tar_xy = tar_xy.astype(jnp.float32)
@@ -137,30 +135,30 @@ def nn_min(src_xy, src_valid, tar_xy, tar_valid, radius=math.inf, *,
     ty = _pad_axis(tar_xy[..., 1], mt_pad, 0.0)
     tv = _pad_axis(tar_valid, mt_pad, False)
     tm = jnp.where(tv, 0.0, jnp.inf).astype(jnp.float32)
-    sb = tile_bounds(jnp.stack([sx, sy], -1), sv, ts)            # (n_st, 4)
-    tb = tile_bounds(jnp.stack([tx, ty], -1), tv, tt).reshape(s, n_tt * 4)
+    sb = tile_bounds(jnp.stack([sx, sy], -1), sv, TS)            # (n_st, 4)
+    tb = tile_bounds(jnp.stack([tx, ty], -1), tv, TT).reshape(s, n_tt * 4)
     radius = jnp.asarray(radius, jnp.float32)
     r2 = jnp.reshape(radius * radius, (1,))
 
     nn, d2 = pl.pallas_call(
-        functools.partial(_nn_kernel, n_tt=n_tt, tt=tt),
+        functools.partial(_nn_kernel, n_tt=n_tt),
         grid=(s, n_st),
         in_specs=[
             pl.BlockSpec((1,), lambda i, j: (0,)),
             pl.BlockSpec((None, 4), lambda i, j: (j, 0)),
-            pl.BlockSpec((ts,), lambda i, j: (j,)),
-            pl.BlockSpec((ts,), lambda i, j: (j,)),
+            pl.BlockSpec((TS,), lambda i, j: (j,)),
+            pl.BlockSpec((TS,), lambda i, j: (j,)),
             pl.BlockSpec((None, n_tt * 4), lambda i, j: (i, 0)),
             pl.BlockSpec((None, mt_pad), lambda i, j: (i, 0)),
             pl.BlockSpec((None, mt_pad), lambda i, j: (i, 0)),
             pl.BlockSpec((None, mt_pad), lambda i, j: (i, 0)),
         ],
-        out_specs=[pl.BlockSpec((None, ts), lambda i, j: (i, j)),
-                   pl.BlockSpec((None, ts), lambda i, j: (i, j))],
+        out_specs=[pl.BlockSpec((None, TS), lambda i, j: (i, j)),
+                   pl.BlockSpec((None, TS), lambda i, j: (i, j))],
         out_shape=[jax.ShapeDtypeStruct((s, ms_pad), jnp.int32),
                    jax.ShapeDtypeStruct((s, ms_pad), jnp.float32)],
         backend="triton",
-        compiler_params=plt.CompilerParams(num_warps=num_warps,
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
                                            num_stages=1),
         interpret=interpret,
         name="nn_min_sparse",

@@ -28,6 +28,7 @@ similarity-based residual weighting reproduce `n_scan_normal.h:87-404` and
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Tuple
 
@@ -727,28 +728,48 @@ def lm_solve_packed_xla(packed, pose0, cfg: CFEARConfig):
 _FAST_DENSE = ("dense", "sparse")
 
 
-def resolve_assoc_method(cfg: CFEARConfig, s_act: int) -> str:
+# the block-sparse kernel pays when a call has this many (lane, keyframe)
+# windows or more; see `resolve_assoc_method`
+SPARSE_MIN_WINDOWS = 32
+
+
+def resolve_assoc_method(cfg: CFEARConfig, s_act: int, lanes: int = 1) -> str:
     """Resolve `assoc_method="auto"` to a concrete backend for a window of
-    `s_act` active keyframes.
+    `s_act` active keyframes, run for `lanes` vmapped lanes at once.
 
     ONE shared policy for `register()`, `get_cost()`, `sample_covariance()`
     and `cost_surface()` — the reference evaluates GetCost on the same
     problem structure as Register (`n_scan_normal.cpp:188-213`), so the
     cost-sampling covariance must ride the same fast backends. Keyed on
     `runtime.platform()`: dense XLA on the CPU (the kernel has no CPU
-    compiler); on the GPU the block-sparse kernel for windows of 8 or more
-    keyframes with Morton-ordered cells, else dense XLA. Measured end to end
-    on an H100 (400 W): the kernel gains 10-36 % at 16 and 50 keyframes and
-    loses 8 % on a single CFEAR-3 stream (4 keyframes). All backends
-    produce identical accepted associations.
+    compiler); on the GPU the block-sparse kernel when cells are
+    Morton-ordered and s_act * lanes >= SPARSE_MIN_WINDOWS, else dense XLA.
+    Measured end to end on an H100 (700 W, batched step, two sets of
+    sequences), kernel against dense frames/s: 4 keyframes -4.4 % / -0.1 %
+    at 1 lane, +3.4 % / +2.2 % at 8; 8 keyframes -5.3 % / -0.2 % at 1 lane,
+    +6.4 % / +9.8 % at 8; 16 keyframes -7.5 % / -1.7 % at 1 lane, +14.7 % /
+    +13.1 % at 8; 50 keyframes (400 W) +10 % at 1 lane, +36 % at 8. All
+    backends produce identical accepted associations.
     """
     method = cfg.registration.assoc_method
     if method != "auto":
         return method
     if (runtime.platform() == "gpu" and cfg.feature.spatial_sort
-            and s_act >= 8):
+            and s_act * lanes >= SPARSE_MIN_WINDOWS):
         return "sparse"
     return "dense"
+
+
+def for_lanes(cfg: CFEARConfig, lanes: int) -> CFEARConfig:
+    """`cfg` with `assoc_method="auto"` resolved for a step that vmaps
+    `lanes` sequences: `register()` cannot see the batch it runs in."""
+    reg = cfg.registration
+    if reg.assoc_method != "auto":
+        return cfg
+    s_all = cfg.odometry.submap_scan_size
+    s_act = min(reg.max_active_keyframes or s_all, s_all)
+    return cfg.replace(registration=dataclasses.replace(
+        reg, assoc_method=resolve_assoc_method(cfg, s_act, lanes)))
 
 
 def _active_window(kf_cells: CellMap, kf_poses, kf_valid, center, cfg):

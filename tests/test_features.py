@@ -2,6 +2,7 @@ import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from cfear_jax.config import preset
 from cfear_jax.ops import features
@@ -144,8 +145,9 @@ def test_compensate_cells_identity():
 
 
 def test_compute_cells_batched_matches_per_lane():
-    """The hand-batched feature stage (one lane-offset scatter for all
-    lanes) must match per-lane compute_cells exactly."""
+    """The hand-batched feature stage (one segment sum for all lanes) must
+    give every lane the bits of compute_cells on that lane alone: its sums
+    add in a per-lane order."""
     import jax
 
     rng = np.random.default_rng(9)
@@ -161,9 +163,43 @@ def test_compute_cells_batched_matches_per_lane():
     for i, c in enumerate(clouds):
         ref = features.compute_cells(c, cfg)
         for f in ref._fields:
-            np.testing.assert_allclose(
+            np.testing.assert_array_equal(
                 np.asarray(getattr(got, f)[i]), np.asarray(getattr(ref, f)),
-                atol=1e-5, err_msg=f"lane {i} field {f}")
+                err_msg=f"lane {i} field {f}")
+
+
+def _segment_case(case, rng, b=3, n=257, s=40, c=5):
+    data = rng.normal(size=(b, n, c)).astype(np.float32)
+    if case == "random":           # ids in [0, s], s = dropped
+        seg = rng.integers(0, s + 1, (b, n))
+    elif case == "all_dropped":
+        seg = np.full((b, n), s)
+    elif case == "one_segment":    # one segment spans every row of a lane
+        seg = np.tile(np.array([[7], [0], [s - 1]]), (1, n))
+    else:                          # "singletons": every kept id once
+        perm = np.stack([rng.permutation(n) for _ in range(b)])
+        seg = np.where(perm < s, perm, s)
+    return data, seg.astype(np.int32), s
+
+
+@pytest.mark.parametrize("case", ["random", "all_dropped", "one_segment",
+                                  "singletons"])
+def test_segment_sum_lanes_matches_numpy(case):
+    """`_segment_sum_lanes` against np.add.at per lane (id s dropped), and
+    each lane alone gives the bits it gives in the batch."""
+    import jax
+
+    data, seg, s = _segment_case(case, np.random.default_rng(4))
+    run = jax.jit(lambda d, g: features._segment_sum_lanes(
+        d, features._segment_plan(g, s), s))
+    got = np.asarray(run(data, seg))
+    ref = np.zeros((data.shape[0], s + 1, data.shape[2]))
+    for lane in range(data.shape[0]):
+        np.add.at(ref[lane], seg[lane], data[lane].astype(np.float64))
+    np.testing.assert_allclose(got, ref[:, :s], rtol=1e-5, atol=1e-5)
+    for lane in range(data.shape[0]):
+        alone = np.asarray(run(data[lane:lane + 1], seg[lane:lane + 1]))
+        np.testing.assert_array_equal(alone[0], got[lane])
 
 
 def test_point_budget_compaction_identical():

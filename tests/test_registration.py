@@ -609,27 +609,55 @@ def test_packed_lm_matches_lm_solve():
     np.testing.assert_allclose(float(c_packed), float(ref.cost), rtol=1e-3)
 
 
-@pytest.mark.parametrize("platform,spatial_sort,s_act,expect", [
-    ("cpu", True, 50, "dense"),
-    ("gpu", False, 50, "dense"),
-    ("gpu", True, 4, "dense"),
-    ("gpu", True, 16, "sparse"),
+@pytest.mark.parametrize("platform,spatial_sort,s_act,lanes,expect", [
+    ("cpu", True, 50, 8, "dense"),
+    ("gpu", False, 50, 8, "dense"),
+    ("gpu", True, 4, 1, "dense"),
+    ("gpu", True, 16, 1, "dense"),
+    ("gpu", True, 50, 1, "sparse"),
+    ("gpu", True, 4, 8, "sparse"),
+    ("gpu", True, 8, 8, "sparse"),
 ])
 def test_assoc_policy_keyed_on_platform(monkeypatch, platform, spatial_sort,
-                                        s_act, expect):
+                                        s_act, lanes, expect):
     """`assoc_method="auto"` resolves by platform: dense XLA on the CPU;
-    on the GPU the block-sparse kernel for large Morton-ordered windows.
-    An explicit method is never overridden."""
+    on the GPU the block-sparse kernel for Morton-ordered windows when a
+    call holds at least SPARSE_MIN_WINDOWS (lane, keyframe) windows. An
+    explicit method is never overridden."""
     from cfear_jax.utils import runtime
 
     monkeypatch.setattr(runtime.jax, "default_backend", lambda: platform)
     cfg = _cfg()
     cfg = cfg.replace(feature=dataclasses.replace(
         cfg.feature, spatial_sort=spatial_sort))
-    assert registration.resolve_assoc_method(cfg, s_act) == expect
+    assert registration.resolve_assoc_method(cfg, s_act, lanes) == expect
     forced = cfg.replace(registration=dataclasses.replace(
         cfg.registration, assoc_method="grid"))
-    assert registration.resolve_assoc_method(forced, s_act) == "grid"
+    assert registration.resolve_assoc_method(forced, s_act, lanes) == "grid"
+
+
+@pytest.mark.parametrize("preset_name,k_active,lanes,expect", [
+    ("CFEAR-3", 0, 1, "dense"),
+    ("CFEAR-3", 0, 8, "sparse"),
+    ("CFEAR-3-s50", 16, 1, "dense"),
+    ("CFEAR-3-s50", 16, 2, "sparse"),
+    ("CFEAR-3-s50", 0, 1, "sparse"),
+])
+def test_for_lanes_resolves_auto_from_window(monkeypatch, preset_name,
+                                             k_active, lanes, expect):
+    """The batched step resolves "auto" for its lane count from the
+    window the config implies (submap size, capped by active keyframes)."""
+    from cfear_jax.utils import runtime
+
+    monkeypatch.setattr(runtime.jax, "default_backend", lambda: "gpu")
+    cfg = preset(preset_name, dataset="oxford")
+    cfg = cfg.replace(
+        feature=dataclasses.replace(cfg.feature, spatial_sort=True),
+        registration=dataclasses.replace(cfg.registration,
+                                         max_active_keyframes=k_active))
+    got = registration.for_lanes(cfg, lanes)
+    assert got.registration.assoc_method == expect
+    assert registration.for_lanes(got, 1) is got     # explicit stays
 
 
 def test_assoc_policy_rejects_unknown_platform(monkeypatch):

@@ -4,8 +4,7 @@ Layer: one jitted `lax.scan` over T source frames (B lanes vmapped) of the
 1-NN step of the association, per variant:
   matmul     dense XLA, |s|^2 + |t|^2 - 2 s.t form (registration.nn_dense)
   diff       dense XLA, (sx - tx)^2 + (sy - ty)^2 form
-  kernel_r_* Pallas kernel with the association radius (tile skipping),
-             per tile configuration ts x tt x num_warps
+  kernel_r   Pallas kernel with the association radius (tile skipping)
   kernel_inf Pallas kernel with radius = inf (dense)
 and of the attribute lookup at the nearest neighbors, per variant:
   gather     one flat gather (registration._associate_world)
@@ -14,8 +13,9 @@ Every variant is checked against `diff` on the rows the radius keeps.
 
 End to end: the batched odometry step (`parallel.mesh.make_batched_runner`
 on a one-device mesh) over T frames of B distinct synthetic sequences at
-Oxford geometry, for CFEAR-3, CFEAR-3-s50 with K=16 active keyframes and
-CFEAR-3-s50 exact, with the association forced to each backend.
+Oxford geometry, per --e2e-cells entry (preset:K, K active keyframes, 0 for
+all) and per --e2e-seeds set of sequences, with the association forced to
+each backend.
 
 Cells come from rendered synthetic Oxford frames (400 x 3768, k=40,
 max_cells=1024, point_budget=8192, Morton-sorted); keyframe windows use the
@@ -23,12 +23,12 @@ ground-truth poses. Every timed region ends in `block_until_ready`; each
 time is the median of --repeats runs after one untimed run.
 
 Usage: python tools/assoc_ab.py [--layer-only | --no-layer]
+           [--e2e-cells CFEAR-3:0,CFEAR-3-s50:8] [--e2e-seeds 100,200]
            [--out assoc_ab.json]
 """
 
 import argparse
 import dataclasses
-import functools
 import itertools
 import json
 import os
@@ -135,12 +135,9 @@ def layer(args, log):
                     sx, tx, tv),
                 "kernel_inf": lambda sx, sv, tx, tv: pallas_assoc.nn_min(
                     sx, sv, tx, tv),
+                "kernel_r": lambda sx, sv, tx, tv: pallas_assoc.nn_min(
+                    sx, sv, tx, tv, radius),
             }
-            for ts, tt, nw in args.kernel_configs:
-                nn_variants[f"kernel_r_{ts}x{tt}x{nw}"] = functools.partial(
-                    lambda sx, sv, tx, tv, **kw: pallas_assoc.nn_min(
-                        sx, sv, tx, tv, radius, **kw),
-                    ts=ts, tt=tt, num_warps=nw)
             res = {}
             for name, fn in nn_variants.items():
                 @jax.jit
@@ -248,13 +245,12 @@ def end_to_end(args, log):
 
     rows = _LoggedRows(log)
     dense_forms = {"matmul": _matmul_nn, "diff": registration.nn_dense}
-    cells = [("CFEAR-3", 0), ("CFEAR-3-s50", 16), ("CFEAR-3-s50", 0)]
-    for (preset_name, k_active), b in itertools.product(cells,
-                                                        args.e2e_batches):
+    for (preset_name, k_active), seed0, b in itertools.product(
+            args.e2e_cells, args.e2e_seeds, args.e2e_batches):
         base = _cfg(preset_name, k_active)
         t = args.e2e_frames
         images = np.stack([synthetic.make_sequence(
-            seed=100 + lane, n_frames=t + 1, cfg=base, speed=6.0)[0]
+            seed=seed0 + lane, n_frames=t + 1, cfg=base, speed=6.0)[0]
             for lane in range(b)])
         for variant in args.e2e_variants:
             cfg = base.replace(registration=dataclasses.replace(
@@ -274,7 +270,7 @@ def end_to_end(args, log):
                                        repeats=args.repeats)
             fo = jax.tree.map(np.asarray, out[1])
             rows.append(dict(layer="e2e", preset=preset_name, K=k_active,
-                             variant=variant, B=b, frames=t,
+                             variant=variant, B=b, seed0=seed0, frames=t,
                              first_s=first_s, seconds=sec,
                              frames_per_s=b * t / sec,
                              failures=int((~fo.success).sum()),
@@ -294,10 +290,12 @@ def main(argv=None):
     ap.add_argument("--e2e-batches", default="1,8")
     ap.add_argument("--e2e-variants", default="matmul,diff,sparse")
     ap.add_argument("--e2e-frames", type=int, default=48)
+    ap.add_argument("--e2e-cells", default="CFEAR-3:0,CFEAR-3-s50:16,"
+                    "CFEAR-3-s50:0", help="preset:K active keyframes "
+                    "(0: all), comma-separated")
+    ap.add_argument("--e2e-seeds", default="100",
+                    help="first seed of each set of B sequences")
     ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--kernel-configs", default="32x32x2",
-                    help="kernel tiles to time with the radius, as "
-                         "ts x tt x num_warps, comma-separated")
     ap.add_argument("--out", default="assoc_ab.json")
     args = ap.parse_args(argv)
     args.windows = [int(v) for v in args.windows.split(",")]
@@ -305,8 +303,9 @@ def main(argv=None):
     args.batch_max = max(args.batches)
     args.e2e_batches = [int(v) for v in args.e2e_batches.split(",")]
     args.e2e_variants = args.e2e_variants.split(",")
-    args.kernel_configs = [tuple(int(v) for v in c.split("x"))
-                           for c in args.kernel_configs.split(",")]
+    args.e2e_cells = [(c.split(":")[0], int(c.split(":")[1]))
+                      for c in args.e2e_cells.split(",")]
+    args.e2e_seeds = [int(v) for v in args.e2e_seeds.split(",")]
 
     import jax
     from cfear_jax.utils.runtime import setup_compile_cache
